@@ -1,10 +1,10 @@
-// sba_native: native host runtime for spherical_bundle_adjuster_tpu.
+// sba_native: native host runtime for spherical_ba.
 //
 // Three subsystems, exposed as a C ABI for ctypes:
 //   1. Image codecs (libpng / libjpeg): decode to RGB8, encode PNG.
 //   2. A threaded prefetching image loader (the data-loader tier the
 //      reference lacks; OpenMP pixel loops in the reference are replaced
-//      on-device by XLA, so the native niche on TPU is host IO).
+//      on-device by XLA, so the native niche is host IO).
 //   3. A float64 "oracle" implementing the reference's numerical
 //      conventions (8-point essential estimation, rot2euler, the
 //      three-stage BCD bundle adjustment with its quirks) used by golden

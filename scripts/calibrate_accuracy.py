@@ -18,7 +18,7 @@ Writes CALIBRATION_r05.json:
     degrees but barely move the median) plus a wide max envelope.
   * suggested gates derived from the worst run with headroom.
 
-Usage: python scripts/calibrate_accuracy.py [repeats] (TPU by default;
+Usage: python scripts/calibrate_accuracy.py [repeats] (the GPU by default;
 JAX_PLATFORMS=cpu for the CPU cross-check).
 """
 

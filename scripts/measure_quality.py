@@ -9,8 +9,7 @@ no recorded quality envelope. This sweeps GT yaw and pitch rotations over
 
 Each (axis, angle) cell is vmapped over the 3 seeds — one compile per
 front-end, reused across the whole grid. Runs on whatever backend is
-default (TPU preferred; CPU works but slowly). Don't overlap with other
-TPU/CPU jobs.
+default (the GPU; the CPU works but slowly).
 
     python scripts/measure_quality.py [--size 512x1024] [--out QUALITY.md]
 """
@@ -23,8 +22,6 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-os.makedirs(os.path.join(REPO, ".jax_cache"), exist_ok=True)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.join(REPO, ".jax_cache"))
 
 import numpy as np
 
@@ -46,18 +43,22 @@ def main(argv=None):
     import jax.numpy as jnp
     from functools import partial
 
-    from spherical_bundle_adjuster_tpu.core import rotation
-    from spherical_bundle_adjuster_tpu.models import evaluation
-    from spherical_bundle_adjuster_tpu.models.frontend import FRONTENDS
-    from spherical_bundle_adjuster_tpu.utils import synthetic
-    from spherical_bundle_adjuster_tpu.utils.config import (
+    from spherical_ba.utils import compile_cache
+
+    compile_cache.enable()
+
+    from spherical_ba.core import rotation
+    from spherical_ba.models import evaluation
+    from spherical_ba.models.frontend import FRONTENDS
+    from spherical_ba.utils import synthetic
+    from spherical_ba.utils.config import (
         FrontendConfig,
         MatchConfig,
         PipelineConfig,
         SurfConfig,
     )
 
-    from spherical_bundle_adjuster_tpu.utils.config import DENSE_BAND_PITCHES
+    from spherical_ba.utils.config import DENSE_BAND_PITCHES
 
     base_cfg = PipelineConfig(
         surf=SurfConfig(max_keypoints=256, n_octaves=3),
@@ -136,7 +137,7 @@ def main(argv=None):
         "  centers, the two views see differently-distorted crops, and matches collapse",
         "  (26.7 → 4.0 between pitch 5° and 15°). Loosening the Lowe ratio recovers",
         "  count but not quality (ratio 0.7 @ pitch 30°: 28 matches, 40% outliers —",
-        "  the descriptors are genuinely distant; see scripts/exp_pitch_cliff.py).",
+        "  the descriptors are genuinely distant).",
         "* **Fix: the dense 22.5° ladder** (`config.DENSE_BAND_PITCHES`, 'band-dense'",
         "  rows below) keeps every latitude within 11.25° of a band center and removes",
         "  the cliff (pitch 30°: 23.7 matches, 10.6% outliers, 0.76° trimmed error at",

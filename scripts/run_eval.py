@@ -36,11 +36,11 @@ def main(argv=None):
     import jax
     import jax.numpy as jnp
 
-    from spherical_bundle_adjuster_tpu.core import rotation, sphere
-    from spherical_bundle_adjuster_tpu.models import evaluation
-    from spherical_bundle_adjuster_tpu.models.frontend import FRONTENDS
-    from spherical_bundle_adjuster_tpu.utils import io, synthetic, viz
-    from spherical_bundle_adjuster_tpu.utils.config import (
+    from spherical_ba.core import rotation, sphere
+    from spherical_ba.models import evaluation
+    from spherical_ba.models.frontend import FRONTENDS
+    from spherical_ba.utils import io, synthetic, viz
+    from spherical_ba.utils.config import (
         FrontendConfig,
         MatchConfig,
         PipelineConfig,

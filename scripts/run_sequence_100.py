@@ -43,10 +43,10 @@ def orbit_eulers(n, yaw_total_deg=356.4, wobble_deg=2.0, seed=0):
 
 
 def run_orbit(n=100, H=256, W=512):
-    from spherical_bundle_adjuster_tpu.core import rotation
-    from spherical_bundle_adjuster_tpu.models import sequence
-    from spherical_bundle_adjuster_tpu.utils import synthetic
-    from spherical_bundle_adjuster_tpu.utils.config import (
+    from spherical_ba.core import rotation
+    from spherical_ba.models import sequence
+    from spherical_ba.utils import synthetic
+    from spherical_ba.utils.config import (
         MatchConfig,
         PipelineConfig,
         SurfConfig,
@@ -79,7 +79,7 @@ def run_orbit(n=100, H=256, W=512):
     jax.block_until_ready(frames)
     t_render = time.perf_counter() - t0
 
-    from spherical_bundle_adjuster_tpu.parallel import mesh as mesh_lib
+    from spherical_ba.parallel import mesh as mesh_lib
 
     mesh = mesh_lib.make_mesh(min(8, len(jax.devices())))
 

@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from spherical_bundle_adjuster_tpu.utils import checkpoint as ckpt
+from spherical_ba.utils import checkpoint as ckpt
 from test_multiview import synth_problem
 
 
@@ -32,6 +32,6 @@ class TestCheckpoint:
             prob, path, total_iters=10, iters_per_round=5
         )
         assert costs2.shape[0] == 0
-        from spherical_bundle_adjuster_tpu.models import multiview as mv
+        from spherical_ba.models import multiview as mv
 
         assert float(mv.total_cost(p1)) < 1e-5

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from spherical_bundle_adjuster_tpu.core import cube, rotation, sphere
+from spherical_ba.core import cube, rotation, sphere
 
 
 class TestSphere:
@@ -136,7 +136,7 @@ class TestCube:
             rng.uniform([0, 0], [6 * s - 1e-3, s - 1e-3], (500, 2))
         )
         bearings = cube.cube_pixel_to_bearing(xy, s)
-        from spherical_bundle_adjuster_tpu.core import sphere as sp
+        from spherical_ba.core import sphere as sp
 
         erp = cube.cube_pixel_to_erp_pixel(xy, s, w, h)
         back = sp.pixel_to_bearing(erp, w, h)

@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import pytest
 
-from spherical_bundle_adjuster_tpu.models import evaluation
-from spherical_bundle_adjuster_tpu.models.frontend import FRONTENDS
-from spherical_bundle_adjuster_tpu.utils import synthetic
-from spherical_bundle_adjuster_tpu.utils.config import (
+from spherical_ba.models import evaluation
+from spherical_ba.models.frontend import FRONTENDS
+from spherical_ba.utils import synthetic
+from spherical_ba.utils.config import (
     FrontendConfig,
     MatchConfig,
     PipelineConfig,
@@ -77,7 +77,7 @@ def test_quality_preset(pair):
     descriptors to the one-way ratio test, which can reject a few
     previously-passing matches — so the bound is 80% of the parity
     count, not a strict inequality (ADVICE r3)."""
-    from spherical_bundle_adjuster_tpu.utils.config import DENSE_BAND_PITCHES
+    from spherical_ba.utils.config import DENSE_BAND_PITCHES
 
     q = CFG.quality()
     assert q.frontend.band_ladder == "dense"

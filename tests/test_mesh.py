@@ -5,7 +5,7 @@ import jax
 import numpy as np
 import pytest
 
-from spherical_bundle_adjuster_tpu.parallel import mesh as mesh_lib
+from spherical_ba.parallel import mesh as mesh_lib
 
 
 class TestMesh:

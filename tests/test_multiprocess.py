@@ -1,7 +1,7 @@
 """Multi-process distributed runtime test: the coordinator path of
 `parallel.mesh.init_distributed` / `jax.distributed.initialize` with a
-mesh axis crossing a process boundary (the CPU stand-in for multi-host
-TPU; VERDICT r2 weak #6 — this path had never executed).
+mesh axis crossing a process boundary (the CPU stand-in for a
+multi-host run).
 
 Delegates to scripts/run_multiprocess.py, which spawns 2 child processes
 (4 virtual CPU devices each), runs solve_multiview_sharded on the global

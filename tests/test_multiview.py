@@ -6,62 +6,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from spherical_bundle_adjuster_tpu.core import rotation
-from spherical_bundle_adjuster_tpu.models import multiview as mv
-from spherical_bundle_adjuster_tpu.parallel import dist_ba, mesh as mesh_lib
+from spherical_ba.models import evaluation
+from spherical_ba.models import multiview as mv
+from spherical_ba.parallel import dist_ba, mesh as mesh_lib
+from spherical_ba.utils import synthetic
 
 
-def synth_problem(C=4, L=64, P=4, noise=0.0, pose_noise=0.05, seed=0):
-    """Cameras on a small trajectory, landmarks on a shell, every landmark
-    observed by P random cameras. Returns (problem_with_noisy_init, gt)."""
-    rng = np.random.default_rng(seed)
-    # GT poses: camera 0 identity; others small rotations + translations
-    aa = rng.uniform(-0.1, 0.1, (C, 3))
-    aa[0] = 0
-    t = rng.uniform(-0.3, 0.3, (C, 3))
-    t[0] = 0
-    poses_gt = np.concatenate([aa, t], axis=-1).astype(np.float32)
-
-    X = rng.normal(size=(L, 3))
-    X = X / np.linalg.norm(X, axis=-1, keepdims=True) * rng.uniform(3, 7, (L, 1))
-    X = X.astype(np.float32)
-
-    obs_cam = np.stack([rng.choice(C, P, replace=False) for _ in range(L)]).astype(
-        np.int32
-    )
-    poses_j = jnp.asarray(poses_gt)
-    p = mv.transform_point(poses_j[obs_cam], jnp.asarray(X)[:, None, :])
-    b = p / jnp.linalg.norm(p, axis=-1, keepdims=True)
-    if noise > 0:
-        b = b + noise * rng.normal(size=b.shape).astype(np.float32)
-        b = b / jnp.linalg.norm(b, axis=-1, keepdims=True)
-
-    # noisy init
-    poses0 = poses_gt + rng.normal(scale=pose_noise, size=poses_gt.shape).astype(
-        np.float32
-    )
-    poses0[0] = poses_gt[0]
-    X0 = X + rng.normal(scale=0.1, size=X.shape).astype(np.float32)
-
-    prob = mv.MultiViewProblem(
-        poses=jnp.asarray(poses0),
-        landmarks=jnp.asarray(X0),
-        obs_cam=jnp.asarray(obs_cam),
-        obs_bearing=jnp.asarray(b, jnp.float32),
-        obs_valid=jnp.ones((L, P), bool),
-        lm_valid=jnp.ones((L,), bool),
-    )
-    return prob, poses_gt, X
-
-
-def pose_errors(poses_est, poses_gt):
-    R_est = rotation.angle_axis_to_matrix(jnp.asarray(poses_est[:, :3]))
-    R_gt = rotation.angle_axis_to_matrix(jnp.asarray(poses_gt[:, :3]))
-    rel = jnp.einsum("cij,ckj->cik", R_est, R_gt)
-    tr = rel[:, 0, 0] + rel[:, 1, 1] + rel[:, 2, 2]
-    ang = np.degrees(np.arccos(np.clip((np.asarray(tr) - 1) / 2, -1, 1)))
-    terr = np.linalg.norm(np.asarray(poses_est[:, 3:]) - poses_gt[:, 3:], axis=-1)
-    return ang, terr
+# the fixture and the error metric live in the package so chip_smoke.py
+# and scripts share them
+synth_problem = synthetic.multiview_problem
+pose_errors = evaluation.pose_errors_host
 
 
 class TestMultiView:

@@ -29,10 +29,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from spherical_bundle_adjuster_tpu.core import rotation
-from spherical_bundle_adjuster_tpu.models.twoview import adjust_from_matches
-from spherical_bundle_adjuster_tpu.utils import native
-from spherical_bundle_adjuster_tpu.utils.config import PipelineConfig
+from spherical_ba.core import rotation
+from spherical_ba.models.twoview import adjust_from_matches
+from spherical_ba.utils import native
+from spherical_ba.utils.config import PipelineConfig
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built"

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from spherical_bundle_adjuster_tpu.core import rotation
-from spherical_bundle_adjuster_tpu.solver import pose_graph as pg
+from spherical_ba.core import rotation
+from spherical_ba.solver import pose_graph as pg
 
 
 def make_loop(n=6, drift=0.03, seed=0):

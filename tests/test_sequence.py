@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from spherical_bundle_adjuster_tpu.core import rotation
-from spherical_bundle_adjuster_tpu.models import sequence
-from spherical_bundle_adjuster_tpu.utils import synthetic
-from spherical_bundle_adjuster_tpu.utils.config import (
+from spherical_ba.core import rotation
+from spherical_ba.models import sequence
+from spherical_ba.utils import synthetic
+from spherical_ba.utils.config import (
     BaConfig,
     MatchConfig,
     PipelineConfig,

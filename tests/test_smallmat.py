@@ -5,7 +5,7 @@ load-bearing for every RANSAC trial and were only covered indirectly)."""
 import numpy as np
 import jax.numpy as jnp
 
-from spherical_bundle_adjuster_tpu.core import smallmat
+from spherical_ba.core import smallmat
 
 
 def random_spd(rng, n, batch=(), scale=1.0):

@@ -10,9 +10,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from spherical_bundle_adjuster_tpu.core import rotation
-from spherical_bundle_adjuster_tpu.solver import epipolar, lm
-from spherical_bundle_adjuster_tpu.utils.config import BaConfig, PipelineConfig, RansacConfig
+from spherical_ba.core import rotation
+from spherical_ba.solver import epipolar, lm
+from spherical_ba.utils.config import BaConfig, PipelineConfig, RansacConfig
 
 
 def synth_two_view(n=64, cap=96, euler=(0.08, -0.12, 0.2), t=(0.2, 0.1, -0.05), seed=0):
@@ -249,7 +249,7 @@ class TestLM:
 
 class TestEndToEndSolve:
     def test_adjust_from_matches_recovers_pose(self):
-        from spherical_bundle_adjuster_tpu.models.twoview import adjust_from_matches
+        from spherical_ba.models.twoview import adjust_from_matches
 
         b1, b2, valid, R, t, d1, d2 = synth_two_view(
             n=96, cap=128, euler=(0.05, -0.1, 0.15), t=(0.15, 0.05, -0.1)
@@ -315,7 +315,7 @@ class TestOutlierRejection:
         assert np.array_equal(np.asarray(mask), np.asarray(valid))
 
     def test_rejection_improves_corrected_pose(self):
-        from spherical_bundle_adjuster_tpu.models.twoview import adjust_from_matches
+        from spherical_ba.models.twoview import adjust_from_matches
 
         b1, b2, valid, R, t, _, _ = synth_two_view(n=96, cap=128)
         b2c, _ = corrupt_matches(b1, b2, valid, n_bad=12)
@@ -359,7 +359,7 @@ class TestInlierCountScoring:
         end-to-end: epipolar counts don't punish rotation error about the
         candidate's own t axis, so on its own it can pick a worse basin —
         that observation is why multi_start exists.)"""
-        from spherical_bundle_adjuster_tpu.models.twoview import adjust_from_matches
+        from spherical_ba.models.twoview import adjust_from_matches
 
         b1, b2, valid, R, t, _, _ = synth_two_view(n=96, cap=128)
         b2c, _ = corrupt_matches(b1, b2, valid, n_bad=24)  # 25% outliers
@@ -415,7 +415,7 @@ class TestRotationHypothesis:
         """End-to-end corrected solve on a 60-deg near-pure-rotation pair
         with outliers: the Kabsch start must put the final pose within
         0.1 deg (the pre-fix tail was ~2-3 deg, QUALITY.md)."""
-        from spherical_bundle_adjuster_tpu.models.twoview import adjust_from_matches
+        from spherical_ba.models.twoview import adjust_from_matches
 
         euler = (0.02, np.deg2rad(60.0), -0.03)
         b1, b2, valid, R, _, _, _ = synth_two_view(

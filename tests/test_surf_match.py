@@ -3,9 +3,10 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
-from spherical_bundle_adjuster_tpu.ops import match, surf
-from spherical_bundle_adjuster_tpu.utils.config import MatchConfig, SurfConfig
+from spherical_ba.ops import integral, match, surf
+from spherical_ba.utils.config import MatchConfig, SurfConfig
 
 CFG = SurfConfig(max_keypoints=64, n_octaves=2)
 
@@ -89,45 +90,31 @@ class TestDescribeAndMatch:
 
 
 class TestGatherModes:
-    def test_mxu_gather_parity_on_cpu(self):
-        """ADVICE r1: the MXU one-hot descriptor-sampling path must match
-        the native-gather path. With gray rounded to the integer grid the
-        bf16 one-hot select is exact for 8U-range values, so the only
-        difference vs 'gather' is the (<= 0.5 gray level) rounding of
-        non-integer band-crop floats; descriptors are normalized Haar sums,
-        so they must agree closely and produce identical match sets."""
-        # Non-integer gray: scale a blob image by a non-representable factor
-        img = blob_image() * jnp.float32(0.7311)
-        cfg_g = SurfConfig(max_keypoints=64, n_octaves=2, gather_mode="gather")
-        cfg_m = SurfConfig(max_keypoints=64, n_octaves=2, gather_mode="mxu")
-        kp_g, d_g = surf.detect_and_describe(img, cfg_g)
-        kp_m, d_m = surf.detect_and_describe(img, cfg_m)
-        # detection is gather-mode independent
-        np.testing.assert_array_equal(np.asarray(kp_g.valid), np.asarray(kp_m.valid))
-        np.testing.assert_allclose(np.asarray(kp_g.xy), np.asarray(kp_m.xy))
-        v = np.asarray(kp_g.valid)
-        assert v.sum() >= 3
-        # descriptor closeness: unit-norm 64-d vectors, tight cosine bound
-        dg = np.asarray(d_g)[v]
-        dm = np.asarray(d_m)[v]
-        cos = np.sum(dg * dm, axis=-1)
-        assert np.all(cos > 0.999), f"min cosine {cos.min()}"
-        # match-quality parity: self-matching with either bank is identical
-        mt_g = match.match_descriptors(
-            d_g, kp_g.valid, d_g, kp_g.valid,
-            cfg=MatchConfig(max_matches=64, ratio_thresh=0.9),
-        )
-        mt_m = match.match_descriptors(
-            d_m, kp_m.valid, d_m, kp_m.valid,
-            cfg=MatchConfig(max_matches=64, ratio_thresh=0.9),
-        )
-        np.testing.assert_array_equal(
-            np.asarray(mt_g.valid), np.asarray(mt_m.valid)
-        )
+    def test_orientation_gather_matches_masked_select(self):
+        """The orientation samples come from ONE flat take at
+        q*H*W + cy*W + cx (surf._sample_haar); it must select exactly the
+        elements a row take + one-hot masked column select picks."""
+        rng = np.random.default_rng(5)
+        img = blob_image() * jnp.float32(1.7) + 10.0
+        ii = integral.integral_image(img)
+        haar = surf._dense_haar_maps(ii, CFG)  # (Q, H, W) u32
+        qn, h, w = haar.shape
+        k = 48
+        q = jnp.asarray(rng.integers(0, qn, k), jnp.int32)
+        cy = jnp.asarray(rng.integers(0, h, (k, 13)), jnp.int32)
+        cx = jnp.asarray(rng.integers(0, w, (k, 13)), jnp.int32)
+        got = surf._sample_haar(haar, q, cy, cx)
+        rows = jnp.take(
+            haar.reshape(-1, w), (q[:, None] * h + cy).reshape(-1), axis=0
+        ).reshape(k, 13, w)
+        sel = cx[:, None, :, None] == jnp.arange(w)[None, None, None, :]
+        ref = jnp.sum(jnp.where(sel, rows[:, :, None, :], jnp.uint32(0)), axis=-1)
+        assert got.shape == (k, 13, 13) and got.dtype == jnp.uint32
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
     def test_dense_laplacian_parity(self):
         """laplacian_mode='dense' (one gather per keypoint from per-layer
-        trace-sign maps, the TPU fast path) must agree with the 24-corner
+        trace-sign maps, the default path) must agree with the 24-corner
         'gather' reference path. Signs can differ only for keypoints whose
         refined size falls between layers AND whose trace changes sign
         across that scale step — structured blob scenes have none."""
@@ -143,3 +130,79 @@ class TestGatherModes:
         np.testing.assert_array_equal(
             np.asarray(kd.laplacian)[v], np.asarray(kg.laplacian)[v]
         )
+
+
+def structured_banks(n_train, seed, n_copies=None, all_invalid=False):
+    """Unit descriptors: the train bank is random; the query bank holds
+    noisy copies of a random subset of train rows (clear nearest
+    neighbours) followed by unrelated random rows (ratio-test rejects)."""
+    rng = np.random.default_rng(seed)
+    d = 64
+    train = rng.normal(size=(n_train, d))
+    train /= np.linalg.norm(train, axis=-1, keepdims=True)
+    n_copies = n_copies or n_train // 4
+    src = rng.choice(n_train, n_copies, replace=False)
+    copies = train[src] + 0.02 * rng.normal(size=(n_copies, d))
+    rand = rng.normal(size=(n_train - n_copies, d))
+    query = np.concatenate([copies, rand])
+    query /= np.linalg.norm(query, axis=-1, keepdims=True)
+    v_train = rng.random(n_train) > 0.1
+    if all_invalid:
+        v_train[:] = False
+    v_query = rng.random(n_train) > 0.1
+    return (query.astype(np.float32), v_query, train.astype(np.float32), v_train)
+
+
+def numpy_matches(q, vq, t, vt, ratio):
+    """Brute-force float64 top-2 + ratio test -> {(query, train): dist}."""
+    d2 = np.sum((q[:, None, :].astype(np.float64) - t[None, :, :]) ** 2, -1)
+    d2 = np.where(vt[None, :], d2, np.inf)
+    order = np.argsort(d2, axis=1)[:, :2]
+    best = np.sqrt(np.take_along_axis(d2, order[:, :1], 1)[:, 0])
+    second = np.sqrt(np.take_along_axis(d2, order[:, 1:2], 1)[:, 0])
+    good = vq & np.isfinite(best) & np.isfinite(second) & (best < ratio * second)
+    return {(int(i), int(order[i, 0])): best[i] for i in np.nonzero(good)[0]}
+
+
+@pytest.mark.parametrize(
+    "bank,all_invalid", [(2048, False), (4096, False), (2048, True)],
+    ids=["bank2048", "bank4096", "all_invalid"],
+)
+def test_match_descriptors_against_numpy_top2(bank, all_invalid):
+    """The matcher at the pipeline's real bank sizes (4 bands x 512 at 2K,
+    8 bands x 512 on the dense ladder) against a float64 NumPy top-2."""
+    q, vq, t, vt = structured_banks(bank, seed=bank, all_invalid=all_invalid)
+    cfg = MatchConfig(max_matches=bank, ratio_thresh=0.8)
+    mt = match.match_descriptors(
+        jnp.asarray(q), jnp.asarray(vq), jnp.asarray(t), jnp.asarray(vt), cfg=cfg
+    )
+    ref = numpy_matches(q, vq, t, vt, cfg.ratio_thresh)
+    v = np.asarray(mt.valid)
+    got = dict(zip(zip(np.asarray(mt.query_idx)[v].tolist(),
+                       np.asarray(mt.train_idx)[v].tolist()),
+                   np.asarray(mt.distance)[v]))
+    assert set(got) == set(ref)
+    if all_invalid:
+        assert not ref
+        return
+    assert len(ref) > bank // 8
+    for key, dist in got.items():
+        # f32 distances from |a|^2 + |b|^2 - 2ab: ~1e-3 absolute near 0.1
+        assert abs(dist - ref[key]) < 2e-3
+    # valid matches come first, sorted by ascending distance
+    assert np.all(np.diff(np.asarray(mt.distance)[v]) >= 0)
+
+
+@pytest.mark.gpu
+def test_match_descriptors_on_gpu_against_numpy_top2(gpu_device):
+    """On the card the distance product must not run at reduced (TF32)
+    precision: the match set at a 2048 bank equals the float64 one."""
+    q, vq, t, vt = structured_banks(2048, seed=11)
+    cfg = MatchConfig(max_matches=2048, ratio_thresh=0.8)
+    args = [jax.device_put(jnp.asarray(x), gpu_device) for x in (q, vq, t, vt)]
+    mt = match.match_descriptors(*args, cfg=cfg)
+    ref = numpy_matches(q, vq, t, vt, cfg.ratio_thresh)
+    v = np.asarray(mt.valid)
+    got = set(zip(np.asarray(mt.query_idx)[v].tolist(),
+                  np.asarray(mt.train_idx)[v].tolist()))
+    assert got == set(ref)

@@ -6,9 +6,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from spherical_bundle_adjuster_tpu.core import rotation, sphere
-from spherical_bundle_adjuster_tpu.models import multiview as mv
-from spherical_bundle_adjuster_tpu.models import tracks
+from spherical_ba.core import rotation, sphere
+from spherical_ba.models import multiview as mv
+from spherical_ba.models import tracks
 
 
 class TestMergeTracks:

@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from spherical_bundle_adjuster_tpu.core import rotation
-from spherical_bundle_adjuster_tpu.models.twoview import adjust_from_matches
-from spherical_bundle_adjuster_tpu.utils.config import BaConfig, PipelineConfig
+from spherical_ba.core import rotation
+from spherical_ba.models.twoview import adjust_from_matches
+from spherical_ba.utils.config import BaConfig, PipelineConfig
 from test_solver import geodesic_deg, synth_two_view
 
 
@@ -59,9 +59,9 @@ def test_batch_chunking_matches_unchunked():
     """run_two_view_batch with batch_chunk must be bit-compatible with the
     plain vmap (lax.map over vmapped sub-batches; bounds the descriptor
     one-hot operand that OOM'd batch 64 in round 2)."""
-    from spherical_bundle_adjuster_tpu.models import twoview
-    from spherical_bundle_adjuster_tpu.utils import synthetic
-    from spherical_bundle_adjuster_tpu.utils.config import MatchConfig, SurfConfig
+    from spherical_ba.models import twoview
+    from spherical_ba.utils import synthetic
+    from spherical_ba.utils.config import MatchConfig, SurfConfig
 
     cfg = PipelineConfig(
         surf=SurfConfig(max_keypoints=64, n_octaves=2),
@@ -91,9 +91,9 @@ def test_batch_chunking_pads_ragged_batches():
     #9: it silently fell back to the full vmap, re-exposing the unbounded
     descriptor fusion the chunking exists to prevent) and match the
     unchunked result row-for-row."""
-    from spherical_bundle_adjuster_tpu.models import twoview
-    from spherical_bundle_adjuster_tpu.utils import synthetic
-    from spherical_bundle_adjuster_tpu.utils.config import MatchConfig, SurfConfig
+    from spherical_ba.models import twoview
+    from spherical_ba.utils import synthetic
+    from spherical_ba.utils.config import MatchConfig, SurfConfig
 
     cfg = PipelineConfig(
         surf=SurfConfig(max_keypoints=64, n_octaves=2),
@@ -148,9 +148,9 @@ def test_batched_auto_ladder_two_pass_matches_per_pair():
     pairs) whose per-pair results equal the un-vmapped single-pair
     lax.cond semantics — without paying dense cost for every pair."""
     import dataclasses
-    from spherical_bundle_adjuster_tpu.models import twoview
-    from spherical_bundle_adjuster_tpu.utils import synthetic
-    from spherical_bundle_adjuster_tpu.utils.config import MatchConfig, SurfConfig
+    from spherical_ba.models import twoview
+    from spherical_ba.utils import synthetic
+    from spherical_ba.utils.config import MatchConfig, SurfConfig
 
     cfg = PipelineConfig(
         surf=SurfConfig(max_keypoints=64, n_octaves=2),

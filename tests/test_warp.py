@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from spherical_bundle_adjuster_tpu.core import rotation
-from spherical_bundle_adjuster_tpu.ops import warp
+from spherical_ba.core import rotation
+from spherical_ba.ops import warp
 
 
 def _synthetic_erp(h=64, w=128, c=3, seed=0):
@@ -99,7 +99,7 @@ def test_band_pixel_to_erp_inverts_crop_coords():
 def test_equi_to_cube_face_matches_strip():
     """Single-face getters (equi2cube.hpp:24-30 parity): each face equals
     its slice of the 6-face strip."""
-    from spherical_bundle_adjuster_tpu.core.cube import FACE_NAMES
+    from spherical_ba.core.cube import FACE_NAMES
 
     im = _synthetic_erp()
     s = 16
